@@ -1,13 +1,12 @@
 """
-amof_tpu — a TPU-native framework for analyzing Molecular Dynamics
-trajectories of amorphous Metal-Organic Frameworks.
+amof_tpu — a JAX framework for analyzing Molecular Dynamics
+trajectories of amorphous Metal-Organic Frameworks on an accelerator.
 
-Re-designed from scratch for TPU hardware (JAX / XLA / Pallas / pjit):
-trajectories are HBM-resident array batches, the per-frame pair loop is a
-fused on-device engine shared by RDF / CN / BAD, MSD runs as FFT
-autocorrelation, pore analysis is a probe-insertion grid + flood fill, and
-ring statistics run as bounded graph search (device distance matrices + a
-C++ host enumerator).
+Trajectories are device-resident array batches, the per-frame pair loop
+is a fused on-device engine shared by RDF / CN / BAD, MSD runs as FFT
+autocorrelation, pore analysis is a probe-insertion grid + flood fill,
+and ring statistics run as bounded graph search (device distance
+matrices + a C++ host enumerator).
 
 Capability parity target: coudertlab/amof v1.1.0 (see SURVEY.md). Public
 API mirrors the reference's uniform contract — every analysis class is
@@ -18,25 +17,10 @@ and serializes with suffix-enforcing ``write_to_file``
 
 __version__ = "0.1.0"
 
-import os as _os
-
-# Must precede the first jax import below: the XLA C++ extension
-# snapshots TF_CPP_MIN_LOG_LEVEL when its shared object loads, so
-# setting it inside enable_persistent_cache() (which runs after
-# core.frames pulls in jax) cannot silence the benign per-entry
-# XLA:CPU AOT feature-mismatch error logs on plain-CPU processes.
-# Mirrors amof_tpu.cache._platform_tag's platform resolution.
-if (_os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu"
-        and "TF_CPP_MIN_LOG_LEVEL" not in _os.environ
-        and not _os.environ.get("AMOF_TPU_NO_COMPILE_CACHE")):
-    _os.environ["TF_CPP_MIN_LOG_LEVEL"] = "3"
-
 from amof_tpu.cache import enable_persistent_cache
 from amof_tpu.core.frames import Frame, FrameBatch, Trajectory, as_frame_batch
-from amof_tpu.warmup import warmup_mosaic
 
-# kill the cold start: persist compiled executables across processes
-# (751 s observed for a fresh-process full-bench compile, round 3)
+# persist compiled executables across processes
 enable_persistent_cache()
 
 __all__ = [
@@ -45,6 +29,5 @@ __all__ = [
     "Trajectory",
     "as_frame_batch",
     "enable_persistent_cache",
-    "warmup_mosaic",
     "__version__",
 ]

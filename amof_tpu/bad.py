@@ -27,46 +27,13 @@ import numpy as np
 import pandas as pd
 
 import amof_tpu.files.path
-from amof_tpu import labeled
+from amof_tpu import engines, labeled, species as amspecies
 from amof_tpu.core.frames import as_frame_batch
-from amof_tpu.cn import _cutoff_matrix_for_species
-from amof_tpu.data import elements
 from amof_tpu.ops import bad_kernel, pair_engine
-from amof_tpu.rdf import _species_table
 
 logger = logging.getLogger(__name__)
 
 _MAX_NEIGHBOR_CAPACITY = 512
-
-
-def _enumerate_specs(nb_set_and_cutoff, unique):
-    """Wildcard-aware (center, outer) pair enumeration + column names.
-
-    Mirrors amof/bad.py:122-133: "X" is appended iff the cutoff spec
-    covers every species present; pairs with identical center and outer
-    species are excluded except ("X", "X").
-    """
-    present = sorted(
-        {
-            elements.atomic_numbers[s]
-            for nb_set in nb_set_and_cutoff
-            for s in nb_set.split("-")
-        }
-    )
-    epu: list = list(present)
-    if len(epu) == len(unique):
-        epu.append("X")
-    pairs = [
-        (a, b)
-        for b in epu
-        for a in epu
-        if (a not in [b, "X"] or ((a, b) == ("X", "X")))
-    ]
-    names = []
-    for a, b in pairs:
-        sym = lambda x: "X" if x == "X" else elements.symbol_of(x)
-        names.append("-".join([sym(b), sym(a), sym(b)]))
-    return pairs, names
 
 
 def _compute_counts(batch, nb_set_and_cutoff, dtheta, by_cn=False):
@@ -74,9 +41,11 @@ def _compute_counts(batch, nb_set_and_cutoff, dtheta, by_cn=False):
     [n_specs, cn_slots, bins+1] over all frames, plus metadata.
     cn_slots == 1 unless by_cn (the BadByCn axis)."""
     species = np.asarray(batch.species)
-    unique, z_to_idx = _species_table(species)
-    cutoff_matrix = _cutoff_matrix_for_species(nb_set_and_cutoff, unique, z_to_idx)
-    pairs, names = _enumerate_specs(nb_set_and_cutoff, unique)
+    unique, z_to_idx = amspecies.species_table(species)
+    cutoff_matrix = amspecies.cutoff_matrix(
+        nb_set_and_cutoff, unique, z_to_idx
+    )
+    pairs, names = amspecies.bad_specs(nb_set_and_cutoff, unique)
     specs = tuple(
         (
             -1 if a == "X" else int(z_to_idx[a]),
@@ -95,35 +64,15 @@ def _compute_counts(batch, nb_set_and_cutoff, dtheta, by_cn=False):
     cells = np.asarray(batch.cell)
     n_species = len(unique)
 
-    # sorted-window neighbor table when the cutoffs are small next to
-    # the box (same auto-sizing as the fused pipeline); a window miss
+    # sorted-window neighbor table when the backend's engine is the
+    # window and the cutoffs are small next to the box; a window miss
     # sets the overflow flag, and the retry loop below then falls back
     # to the full table
-    n_pad = positions.shape[1]
     window = None
-    rc = float(cutoff_matrix.max())
-    if n_pad >= 2048 and rc > 0:
-        c64 = cells.astype(np.float64)
-        bxc = np.cross(c64[:, 1], c64[:, 2])
-        w0 = float(
-            (np.abs(np.einsum("fi,fi->f", c64[:, 0], bxc))
-             / np.linalg.norm(bxc, axis=1)).min()
-        )
-        est = 1.6 * n_pad * 2.0 * rc / max(w0, 1e-9) + 64
-        window = int(-(-est // 128) * 128)
-        if chunk + 2 * window >= n_pad:
-            window = None
-
-    # 2-level (slab, y) Mosaic upgrade on accelerators (see
-    # ops/slab_table.py); misses fall back window -> full table below
-    slab = None
-    on_accel = pair_engine.default_histogram_method() != "scatter"
-    if window is not None and on_accel:
-        from amof_tpu.ops import slab_table
-
-        slab = slab_table.slab_plan(
-            cells, rc, n_pad, positions=positions,
-            species_idx=species_idx,
+    if (engines.for_backend().bad_table == "window"
+            and positions.shape[1] >= 2048):
+        window = pair_engine.auto_window(
+            cells, float(cutoff_matrix.max()), positions.shape[1], chunk
         )
 
     max_neighbors = 16
@@ -131,15 +80,10 @@ def _compute_counts(batch, nb_set_and_cutoff, dtheta, by_cn=False):
         conc, center_any, overflow = bad_kernel.trajectory_bad_counts(
             positions, cells, species_idx, cutoff_matrix, n_species,
             float(dtheta), n_hist_bins, max_neighbors, chunk, by_cn=by_cn,
-            window=window, slab=slab,
-            table_impl="pallas" if on_accel else "xla",
+            window=window,
         )
         if not bool(overflow):
             break
-        if slab is not None:
-            # could be a slab capacity/coverage miss: retry 1-level
-            slab = None
-            continue
         if window is not None:
             # could be a window miss rather than capacity: drop the
             # window first, then grow capacity

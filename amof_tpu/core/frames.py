@@ -1,7 +1,7 @@
 """
 Core trajectory data structures.
 
-TPU-first design (SURVEY.md §7): frames are arrays, not objects. The
+Device-first design (SURVEY.md §7): frames are arrays, not objects. The
 device-facing container is ``FrameBatch`` — a pytree of
 ``positions f32[F, N, 3]``, ``cell f32[F, 3, 3]``, ``species i32[N]``,
 ``step i32[F]`` — which jitted kernels consume directly and which shards

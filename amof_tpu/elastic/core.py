@@ -14,9 +14,9 @@ voigt/reuss/hill DataFrame, '.mech.csv'); ``print_Cmat`` :281-296.
 The per-frame Python map/loops are replaced by vectorized float64
 numpy. This analysis stays on host deliberately: the covariance
 differences (fij - fi*fj) of ~1e-3 strains underflow f32
-catastrophically, the arrays are tiny (T x 6 x 6), and TPUs have no
-fast f64 — the trajectory-scale kernels are the device citizens, not
-this one.
+catastrophically, the arrays are tiny (T x 6 x 6), and accelerators
+run f64 far slower than f32 — the trajectory-scale kernels are the
+device citizens, not this one.
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ At north-star scale (10k frames x 10k atoms) the volume-weighted RDF
 sums reach ~1e13-1e15 while per-frame addends are ~1e9, and unweighted
 BAD/RDF bin counts can pass f32's 2^24 integer-exactness limit —
 plain f32 `jnp.sum` over the frame axis then loses low bits
-(VERDICT r1 weak #5). f64 is emulated (slow) on TPU, so the frame
-loops accumulate in two f32 words instead: classic Neumaier
+(VERDICT r1 weak #5). f64 runs far slower than f32 on the
+accelerator, so the frame loops accumulate in two f32 words instead: classic Neumaier
 summation, whose running compensation term captures each add's exact
 rounding residual. The result is accurate to ~2^48, at f32 speed and
 without materializing the per-frame stack.

@@ -1,7 +1,7 @@
 """
 On-device bonded-graph kernels.
 
-All-pairs BFS distances via repeated boolean matrix products on the MXU
+All-pairs BFS distances via repeated boolean matrix products on the device
 — the device half of the ring-statistics engine (the combinatorial
 enumeration runs in C++ on host consuming these distance matrices; see
 amof_tpu/native). Also builds bond adjacency matrices from per-species
@@ -48,7 +48,7 @@ def bond_adjacency(positions, cell, species_idx, cutoff_matrix):
 def bfs_distances(adj, max_depth: int):
     """All-pairs shortest-path distances up to max_depth.
 
-    Frontier expansion as f32 matmuls (MXU): reach_{k+1} = reach_k @ adj.
+    Frontier expansion as f32 matrix products: reach_{k+1} = reach_k @ adj.
     Returns u16[N, N] with UNREACHED beyond max_depth.
     """
     n = adj.shape[0]
@@ -61,6 +61,9 @@ def bfs_distances(adj, max_depth: int):
 
     def body(k, state):
         dist, reach = state
+        # both operands are 0/1, exact in TF32 or bf16, and the sum is
+        # only tested for > 0, which no rounding of positive terms can
+        # flip: the default (possibly TF32) precision is exact here
         new_reach = (
             jax.lax.dot_general(
                 reach, adj_f,

@@ -36,6 +36,10 @@ def windowed_msd_atom_series(x, origin_policy: str = "amof"):
     """
     T, A, _ = x.shape
     n_fft = 2 * T  # zero-pad for linear (non-circular) autocorrelation
+    # every term is translation-invariant per atom: centring each atom's
+    # path on its time mean shrinks |r|^2 from the box scale to the
+    # displacement scale, and with it the f32 cancellation in S1 - 2 AC
+    x = x - jnp.mean(x, axis=0, keepdims=True)
 
     D = jnp.sum(x * x, axis=-1)  # [T, A]
     X = jnp.fft.rfft(x, n=n_fft, axis=0)

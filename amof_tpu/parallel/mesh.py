@@ -2,7 +2,7 @@
 Device-mesh construction for trajectory analysis.
 
 The reference's only parallelism is joblib process pools over frames
-(SURVEY.md §2 row 20). The TPU-native equivalent is a single SPMD
+(SURVEY.md §2 row 20). The device equivalent is a single SPMD
 program over a 2-d mesh:
 
   * axis 'frames' — pure data parallelism over the trajectory (the
@@ -16,7 +16,10 @@ Pipeline and expert parallelism have no analog here: the analyses are
 single-pass reductions with no layer pipeline and no routed experts —
 stated explicitly per SURVEY.md §5.7 rather than invented.
 
-Collectives are plain psum over mesh axes; XLA lays them on ICI.
+Collectives are plain psum/all_gather over mesh axes, which XLA hands
+to the device interconnect (NCCL over NVLink on GPUs). The mesh
+follows the algorithm alone: every device reaches every other at the
+same rate.
 """
 
 from __future__ import annotations
@@ -44,13 +47,6 @@ def analysis_mesh(n_devices=None, frames_axis=None, n_frames=None) -> Mesh:
             used to auto-split frames/atoms as described above.
     """
     devices = jax.devices()
-    # every heavy analysis builds its mesh before compiling: fire the
-    # one-time Mosaic runtime warmup here so the remote worker's init
-    # (63-400 s on a cold pool grant; amof_tpu/warmup.py) overlaps
-    # program preparation and host->device transfers
-    from amof_tpu.warmup import warmup_mosaic
-
-    warmup_mosaic()
     n_avail = len(devices)
     if n_devices is not None:
         if n_devices > n_avail:

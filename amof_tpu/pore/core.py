@@ -55,7 +55,7 @@ class Pore:
 
     def compute_surface_volume(self, frames, step, parallel=False, **kwargs):
         # `parallel` is the reference's joblib toggle (amof/pore/core.py:
-        # 52-61). For -sa/-vol-only requests the TPU-native equivalent —
+        # 52-61). For -sa/-vol-only requests the device equivalent —
         # one compiled program mapped over all frames, sharded over the
         # mesh — is strictly better and is the default; `parallel` then
         # only governs the per-frame fallback (non-batchable option

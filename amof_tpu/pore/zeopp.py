@@ -62,8 +62,8 @@ A3_TO_CM3 = 1.0e-24
 
 
 def _grid_dims(cell, resolution):
-    # rounded up to multiples of 4 (slightly finer than requested) so
-    # the Mosaic flood-fill sweep kernel can slab the x axis evenly
+    # rounded up to multiples of 4 (slightly finer than requested), so
+    # the grid splits evenly into slabs
     lengths = np.linalg.norm(np.asarray(cell, dtype=np.float64), axis=1)
     return tuple(
         int(-(-max(8, int(np.ceil(l / resolution))) // 4) * 4)

@@ -37,16 +37,9 @@ import amof_tpu.trajectory
 from amof_tpu.core.frames import as_frame_batch
 from amof_tpu.data import elements
 from amof_tpu.ops import pair_engine
+from amof_tpu.species import species_table
 
 logger = logging.getLogger(__name__)
-
-
-def _species_table(species: np.ndarray):
-    """Sorted unique atomic numbers + dense index mapping."""
-    unique = np.array(sorted(set(np.asarray(species).tolist())))
-    z_to_idx = np.full(int(unique.max()) + 1, -1, dtype=np.int32)
-    z_to_idx[unique] = np.arange(len(unique), dtype=np.int32)
-    return unique, z_to_idx
 
 
 def shell_volumes(bins: int, dr: float) -> np.ndarray:
@@ -88,7 +81,7 @@ class Rdf:
     def compute_rdf(self, trajectory, dr, rmax):
         batch = as_frame_batch(trajectory)
         species = np.asarray(batch.species)
-        unique, z_to_idx = _species_table(species)
+        unique, z_to_idx = species_table(species)
         n_species = len(unique)
         n_atoms = batch.num_atoms
         n_frames = batch.num_frames
@@ -114,27 +107,9 @@ class Rdf:
         self.data = pd.DataFrame({"r": r})
 
         volumes = np.abs(np.linalg.det(cells)).astype(np.float32)
-        method = None
-        positions = species_idx = None
-        if pair_engine.default_histogram_method() != "scatter":
-            # accelerator: species-blocked pallas kernel (bit-exact,
-            # ~7x the XLA mxu path) unless per-species tile padding
-            # would inflate the pair count (tiny systems)
-            from amof_tpu.ops import pallas_rdf
-
-            perm, sp_l = pallas_rdf.species_block_layout(
-                z_to_idx[species], block=256, total_multiple=256
-            )
-            if len(sp_l) <= 1.5 * len(species):
-                positions = pallas_rdf.apply_atom_layout(
-                    np.asarray(batch.positions), perm
-                )
-                species_idx = sp_l
-                method = "pallas-blocked"
-        if positions is None:
-            positions, species_idx = pair_engine.pad_atoms(
-                np.asarray(batch.positions), z_to_idx[species]
-            )
+        positions, species_idx = pair_engine.pad_atoms(
+            np.asarray(batch.positions), z_to_idx[species]
+        )
         counts = np.asarray(
             pair_engine.trajectory_rdf_counts(
                 positions,
@@ -143,7 +118,6 @@ class Rdf:
                 float(dr),
                 n_species,
                 bins,
-                method=method,
                 frame_weights=volumes,
             ),
             dtype=np.float64,
@@ -214,7 +188,7 @@ class CoordinationNumber:
     def compute_cn(self, batch, nb_set_and_cutoff, step, dr, parallel):
         del parallel  # the device engine is always data-parallel over frames
         species = np.asarray(batch.species)
-        unique, z_to_idx = _species_table(species)
+        unique, z_to_idx = species_table(species)
         n_species = len(unique)
         n_atoms = batch.num_atoms
 
@@ -237,7 +211,6 @@ class CoordinationNumber:
                     positions[f], np.asarray(batch.cell)[f], species_idx,
                     float(dr), n_species, bins,
                     chunk=pair_engine._pick_chunk(positions.shape[1]),
-                    method=pair_engine.default_histogram_method(),
                 ),
                 dtype=np.float64,
             )

@@ -12,7 +12,7 @@ report_search bookkeeping and discard policy :229-272, labeled
 '.ring' netCDF + '.report_search.csv' round-trip :274-292.
 
 The RINGS Fortran binary is replaced by: bond adjacency + all-pairs BFS
-distance matrices on device (MXU boolean matmuls,
+distance matrices on device (boolean matrix products,
 amof_tpu/ops/graph_kernel.py) feeding a C++ primitive/King ring
 enumerator (amof_tpu/native/ringsearch.cpp) that implements the
 Le Roux & Jund (2010) / Franzblau (1991) shortest-path ring definitions.

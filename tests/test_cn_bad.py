@@ -9,6 +9,7 @@ import pytest
 import amof_tpu.atom as amatom
 import amof_tpu.bad as ambad
 import amof_tpu.cn as amcn
+import amof_tpu.species as amspecies
 from amof_tpu.core.frames import Frame
 
 
@@ -229,9 +230,9 @@ class TestSortedWindowTable:
     def _random_system(self, n=640, seed=3):
         import jax.numpy as jnp
 
-        from amof_tpu.cn import _cutoff_matrix_for_species
+        from amof_tpu.species import cutoff_matrix as _cutoff_matrix_for_species
         from amof_tpu.ops import pair_engine
-        from amof_tpu.rdf import _species_table
+        from amof_tpu.species import species_table as _species_table
 
         rng = np.random.default_rng(seed)
         species = rng.choice([8, 14, 30], n)
@@ -328,12 +329,12 @@ class TestSortedWindowTable:
 
 class TestBadByCnMxuPath:
     def test_mxu_equals_scatter(self, monkeypatch):
-        """by_cn histograms via the MXU one-hot path match the scatter
-        fallback exactly (the path is chosen by key-space size)."""
+        """by_cn histograms via one one-hot pass match the segmented
+        passes exactly (segmentation is chosen by key-space size)."""
         import amof_tpu.ops.bad_kernel as bk
-        from amof_tpu.cn import _cutoff_matrix_for_species
+        from amof_tpu.species import cutoff_matrix as _cutoff_matrix_for_species
         from amof_tpu.ops import pair_engine
-        from amof_tpu.rdf import _species_table
+        from amof_tpu.species import species_table as _species_table
 
         import jax.numpy as jnp
 
@@ -350,7 +351,7 @@ class TestBadByCnMxuPath:
         kw = dict(n_species=2, dtheta=5.0, bins=37, max_neighbors=8,
                   chunk=64, by_cn=True)
         c_mxu, a_mxu, _ = bk.frame_bad_counts(*args, **kw)
-        monkeypatch.setattr(bk, "MXU_BY_CN_SLOT_LIMIT", 1)
+        monkeypatch.setattr(bk, "ONEHOT_SLOT_LIMIT", 1)
         bk.frame_bad_counts.clear_cache()
         c_sc, a_sc, _ = bk.frame_bad_counts(*args, **kw)
         bk.frame_bad_counts.clear_cache()
@@ -359,57 +360,20 @@ class TestBadByCnMxuPath:
         assert np.asarray(c_mxu).sum() > 0
 
 
-class TestPallasWindowTable:
-    def test_matches_xla_sorted_table(self):
-        """Mosaic window compaction == XLA sorted-table loop (interpret
-        mode on CPU; the TPU bench runs it compiled)."""
-        import jax
-        import jax.numpy as jnp
-
-        from amof_tpu.ops import pair_engine
-        from amof_tpu.ops.pallas_neighbors import pallas_window_table
-
-        pos, cell, sp, cm = TestSortedWindowTable()._random_system(n=640)
-        kw = dict(max_neighbors=8, chunk=128, window=128)
-        ref = pair_engine.frame_neighbor_payload_table_sorted(
-            pos, cell, sp, cm, **kw
-        )
-        nbr_pos_r, nbr_sp_r, cnt_r, flag, c_pos, c_sp = ref
-        assert not bool(flag)
-        # re-derive the sorted arrays exactly as the table does
-        inv_cell = jnp.linalg.inv(cell)
-        f0 = pair_engine.matvec3(pos, inv_cell)[:, 0]
-        f0 = f0 - jnp.floor(f0)
-        key = jnp.where(sp >= 0, f0, 2.0)
-        _, xs, ys, zs, sps = jax.lax.sort(
-            (key, pos[:, 0], pos[:, 1], pos[:, 2], sp),
-            dimension=0, num_keys=1,
-        )
-
-        nbr_pos, nbr_sp, cnt_win = pallas_window_table(
-            jnp.stack([xs, ys, zs], -1), sps, cell, cm, 3,
-            kw["max_neighbors"], kw["chunk"], kw["window"], interpret=True,
-        )
-        assert np.array_equal(np.asarray(nbr_sp), np.asarray(nbr_sp_r))
-        assert np.allclose(np.asarray(nbr_pos), np.asarray(nbr_pos_r))
-        assert np.array_equal(np.asarray(cnt_win), np.asarray(cnt_r))
-
-
 class TestSegmentedMxuHistogram:
-    """Key spaces beyond MXU_BY_CN_SLOT_LIMIT are segmented into bounded
-    MXU passes instead of falling back to scatter (which serializes on
-    TPU; VERDICT r1 weak #6)."""
+    """Key spaces beyond ONEHOT_SLOT_LIMIT are segmented into bounded
+    one-hot passes."""
 
     def test_matches_bincount(self):
         import jax.numpy as jnp
 
-        from amof_tpu.ops.bad_kernel import _segmented_mxu_histogram
+        from amof_tpu.ops.bad_kernel import _segmented_onehot_histogram
 
         rng = np.random.default_rng(0)
         total = 1000
         k = rng.integers(0, total + 1, size=(64, 37)).astype(np.int32)
         w = (rng.random((64, 37)) < 0.7).astype(np.float32)
-        got = np.asarray(_segmented_mxu_histogram(
+        got = np.asarray(_segmented_onehot_histogram(
             jnp.asarray(k), jnp.asarray(w), total, seg_limit=128
         ))
         want = np.bincount(
@@ -518,7 +482,7 @@ class TestWindowedCnClass:
 
         from amof_tpu.core.frames import FrameBatch
         from amof_tpu.ops import pair_engine
-        from amof_tpu.rdf import _species_table
+        from amof_tpu.species import species_table as _species_table
 
         rng = np.random.default_rng(5)
         n, box, nf = 2560, 34.0, 2
@@ -534,7 +498,7 @@ class TestWindowedCnClass:
         )
         # oracle: full-pass counts through the same normalization
         unique, z_to_idx = _species_table(species)
-        cmat = amcn._cutoff_matrix_for_species(
+        cmat = amspecies.cutoff_matrix(
             {"Zn-N": 2.8, "N-N": 2.2}, unique, z_to_idx
         )
         p_pad, sp_pad = pair_engine.pad_atoms(pos, z_to_idx[species])
@@ -590,7 +554,7 @@ class TestBadClassAutoWindow:
         equal the forced full-table run bit for bit."""
         from amof_tpu.core.frames import FrameBatch
         from amof_tpu.ops import bad_kernel
-        from amof_tpu.rdf import _species_table
+        from amof_tpu.species import species_table as _species_table
         from amof_tpu.ops import pair_engine
 
         rng = np.random.default_rng(9)
@@ -606,7 +570,7 @@ class TestBadClassAutoWindow:
         bad = ambad.Bad.from_trajectory(batch, cut, dtheta=1.0)
         # oracle: full-table counts through the kernel directly
         unique, z_to_idx = _species_table(species)
-        cmat = ambad._cutoff_matrix_for_species(cut, unique, z_to_idx)
+        cmat = amspecies.cutoff_matrix(cut, unique, z_to_idx)
         p_pad, sp_pad = pair_engine.pad_atoms(pos, z_to_idx[species])
         conc, any_, ovf = bad_kernel.trajectory_bad_counts(
             p_pad, cells, sp_pad, cmat, len(unique), 1.0, 181, 16, 256,
@@ -618,7 +582,7 @@ class TestBadClassAutoWindow:
         # verifies the auto-windowed path against the full table; a
         # second identical class run would compare the windowed run to
         # itself)
-        pairs, names = ambad._enumerate_specs(cut, unique)
+        pairs, names = amspecies.bad_specs(cut, unique)
         specs = [
             (
                 -1 if a == "X" else int(z_to_idx[a]),

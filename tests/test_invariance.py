@@ -33,7 +33,7 @@ def _batch(rng, n_frames=2, n_atoms=96, box=11.0, triclinic=False):
 def _run(batch):
     fa = FusedAnalysis(
         {"Zn-N": 2.5, "C-N": 1.7, "C-C": 1.8}, dr=0.1, dtheta=2.0,
-        chunk=32, method="scatter", with_bad=True, with_msd=False,
+        chunk=32, with_bad=True, with_msd=False,
         max_neighbors=24,
     )
     out, _ = fa.run(batch, mesh=analysis_mesh(1))

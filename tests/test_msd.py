@@ -39,7 +39,7 @@ class TestMsdKernel:
         for m in [0, 1, 5, 17, 31]:
             ref = reference_window_msd(list(steps), m)
             # rel 5e-4: f32 FFT accumulation differs slightly across
-            # backends (CPU vs TPU)
+            # backends (CPU vs GPU)
             assert msd_fft[m] == pytest.approx(ref, rel=5e-4), m
 
     def test_standard_estimator(self):

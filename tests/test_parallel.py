@@ -25,7 +25,7 @@ def tiny_trajectory(n_frames=8, n_atoms=96, seed=0):
 def fused():
     return FusedAnalysis(
         {"Zn-N": 2.5, "C-H": 1.3}, dr=0.05, dtheta=2.0, chunk=16,
-        method="scatter", with_bad=True, with_msd=True,
+        with_bad=True, with_msd=True,
     )
 
 
@@ -95,7 +95,7 @@ class TestFusedPipeline:
         ref, _ = fused.run(frames, mesh=mesh)
         fa = FusedAnalysis(
             {"Zn-N": 2.5, "C-H": 1.3}, dr=0.05, dtheta=2.0, chunk=16,
-            method="scatter", with_bad=True, with_msd=True,
+            with_bad=True, with_msd=True,
             frames_per_call=1, msd_atoms_per_call=16,
         )
         out, meta = fa.run(frames, mesh=mesh)
@@ -116,13 +116,13 @@ class TestFusedPipeline:
         mesh = analysis_mesh(8, frames_axis=4)
         ref = FusedAnalysis(
             {"Zn-N": 2.5, "C-H": 1.3}, dr=0.05, dtheta=2.0, chunk=16,
-            method="scatter", with_msd=False, max_neighbors=16,
+            with_msd=False, max_neighbors=16,
         )
         out_ref, _ = ref.run(frames, mesh=mesh)
         assert not np.asarray(out_ref["bad_overflow"]).any()
         small = FusedAnalysis(
             {"Zn-N": 2.5, "C-H": 1.3}, dr=0.05, dtheta=2.0, chunk=16,
-            method="scatter", with_msd=False, max_neighbors=2,
+            with_msd=False, max_neighbors=2,
             frames_per_call=1,
         )
         out, _ = small.run(frames, mesh=mesh)
@@ -152,7 +152,7 @@ class TestFusedPipeline:
             pos % box, cells, species, np.arange(n_f, dtype=np.int32)
         )
         mesh = analysis_mesh(8, frames_axis=4)
-        kw = dict(dr=0.2, dtheta=2.0, chunk=16, method="scatter",
+        kw = dict(dr=0.2, dtheta=2.0, chunk=16,
                   with_msd=False)
         ref = FusedAnalysis({"Zn-N": 2.8}, max_neighbors=32, **kw)
         out_ref, _ = ref.run(batch, mesh=mesh)
@@ -190,12 +190,12 @@ class TestFusedPipeline:
         mesh = analysis_mesh(8, frames_axis=4)
         mono = FusedAnalysis(
             {"Zn-N": 2.5}, dr=0.5, with_bad=False, with_msd=True,
-            method="scatter", chunk=64,
+            chunk=64,
         )
         ref, _ = mono.run(batch, mesh=mesh)
         chunked = FusedAnalysis(
             {"Zn-N": 2.5}, dr=0.5, with_bad=False, with_msd=True,
-            method="scatter", chunk=64, frames_per_call=256,
+            chunk=64, frames_per_call=256,
             msd_atoms_per_call=128,
         )
         out, meta = chunked.run(batch, mesh=mesh)

@@ -32,7 +32,7 @@ class TestAnalyze:
         spec = {"Zn-N": 2.5, "C-N": 1.7}
         out = analyze(
             traj, spec, dr=0.05, dtheta=2.0, delta_time=1, timestep=1,
-            chunk=16, method="scatter",
+            chunk=16,
         )
 
         rdf = amrdf.Rdf.from_trajectory(traj, dr=0.05)
@@ -66,7 +66,7 @@ class TestAnalyze:
     def test_objects_roundtrip(self, traj, tmp_path):
         out = analyze(
             traj, {"Zn-N": 2.5}, dr=0.1, dtheta=5.0, delta_time=2,
-            timestep=1, chunk=16, method="scatter",
+            timestep=1, chunk=16,
         )
         out["rdf"].write_to_file(tmp_path / "t")
         assert np.allclose(

@@ -909,196 +909,6 @@ class TestMassAndExtra:
             zeopp.network(f, vol=True, mass="mass.mass")
 
 
-class TestPallasSweeps:
-    """Mosaic flood-fill sweep kernel == XLA roll path (interpret mode)."""
-
-    def _random_mask(self, seed, shape=(16, 12, 20), frac=0.35):
-        rng = np.random.default_rng(seed)
-        return rng.random(shape) < frac
-
-    @pytest.mark.parametrize("periodic", [True, False])
-    @pytest.mark.parametrize("seed", [0, 1])
-    def test_fixpoint_equivalence(self, periodic, seed):
-        import jax.numpy as jnp
-
-        mask = self._random_mask(seed)
-        init = np.where(
-            mask, np.arange(mask.size, dtype=np.int32).reshape(mask.shape),
-            -1,
-        )
-        # XLA reference fixpoint
-        ref = np.asarray(grid_kernel._propagate_fixpoint(
-            jnp.asarray(init), periodic, 8, use_pallas=False
-        ))
-        # pallas rounds (interpret mode), iterated to fixpoint by hand
-        lab = jnp.asarray(init)
-        for _ in range(200):
-            lab, changed = grid_kernel._pallas_sweep_round(
-                lab, 4, periodic, interpret=True
-            )
-            if not bool(np.asarray(changed)):
-                break
-        np.testing.assert_array_equal(np.asarray(lab), ref)
-
-    def test_changed_flag_false_at_fixpoint(self):
-        import jax.numpy as jnp
-
-        mask = self._random_mask(3)
-        init = np.where(
-            mask, np.arange(mask.size, dtype=np.int32).reshape(mask.shape),
-            -1,
-        )
-        ref = grid_kernel._propagate_fixpoint(
-            jnp.asarray(init), True, 8, use_pallas=False
-        )
-        _, changed = grid_kernel._pallas_sweep_round(
-            ref, 4, True, interpret=True
-        )
-        assert not bool(np.asarray(changed))
-
-    @pytest.mark.parametrize("periodic", [True, False])
-    @pytest.mark.parametrize("alt", [False, True])
-    @pytest.mark.parametrize("ns,rd", [(1, 1), (2, 1)])
-    def test_run_doubling_equivalence(self, periodic, alt, ns, rd):
-        """Run-doubling rounds (full-run propagation per axis inside
-        the slab) reach the same fixpoint as the XLA reference — the
-        doubling guard must never jump across a wall, a block x-edge,
-        or (aperiodic) the y/z wrap."""
-        import jax.numpy as jnp
-
-        for seed in (0, 1):
-            mask = self._random_mask(seed)
-            init = np.where(
-                mask,
-                np.arange(mask.size, dtype=np.int32).reshape(mask.shape),
-                -1,
-            )
-            ref = np.asarray(grid_kernel._propagate_fixpoint(
-                jnp.asarray(init), periodic, 8, use_pallas=False
-            ))
-            lab = jnp.asarray(init)
-            for _ in range(200):
-                if alt:
-                    l1, c1 = grid_kernel._pallas_sweep_round(
-                        lab, 4, periodic, interpret=True, n_sweeps=ns,
-                        run_doubling=rd,
-                    )
-                    l2, c2 = grid_kernel._pallas_sweep_round(
-                        l1.transpose(1, 0, 2), 4, periodic,
-                        interpret=True, n_sweeps=ns, run_doubling=rd,
-                    )
-                    lab, changed = l2.transpose(1, 0, 2), c1 | c2
-                else:
-                    lab, changed = grid_kernel._pallas_sweep_round(
-                        lab, 4, periodic, interpret=True, n_sweeps=ns,
-                        run_doubling=rd,
-                    )
-                if not bool(np.asarray(changed)):
-                    break
-            np.testing.assert_array_equal(np.asarray(lab), ref)
-
-    def test_run_doubling_narrow_spiral(self):
-        """A 1-voxel-wide spiral channel (worst case for doubling:
-        every run is short, constant direction changes) still labels
-        exactly; doubling must not tunnel through walls."""
-        import jax.numpy as jnp
-
-        g = 12
-        mask = np.zeros((4, g, g), bool)
-        # spiral in the (y, z) plane of slab x=1
-        y, z = 0, 0
-        lo, hi = 0, g - 1
-        path = []
-        while lo <= hi:
-            for zz in range(lo, hi + 1):
-                path.append((lo, zz))
-            for yy in range(lo + 1, hi + 1):
-                path.append((yy, hi))
-            for zz in range(hi - 1, lo - 1, -1):
-                path.append((hi, zz))
-            for yy in range(hi - 1, lo, -1):
-                path.append((yy, lo + 1))
-            lo += 2
-            hi -= 2
-        for (yy, zz) in path:
-            mask[1, yy, zz] = True
-        init = np.where(
-            mask, np.arange(mask.size, dtype=np.int32).reshape(mask.shape),
-            -1,
-        )
-        ref = np.asarray(grid_kernel._propagate_fixpoint(
-            jnp.asarray(init), False, 8, use_pallas=False
-        ))
-        lab = jnp.asarray(init)
-        for _ in range(300):
-            lab, changed = grid_kernel._pallas_sweep_round(
-                lab, 2, False, interpret=True, n_sweeps=2, run_doubling=1
-            )
-            if not bool(np.asarray(changed)):
-                break
-        np.testing.assert_array_equal(np.asarray(lab), ref)
-
-    @pytest.mark.parametrize("periodic", [True, False])
-    @pytest.mark.parametrize("seed", [0, 1])
-    def test_block_skip_equivalence(self, periodic, seed):
-        """The block-skip sweep rounds (production TPU default: skip
-        VPU work for blocks whose 3-slab neighborhood is stable) reach
-        the same fixpoint as the XLA reference, driven exactly as
-        ``_propagate_fixpoint`` drives them (3-neighborhood OR of the
-        per-block changed flags)."""
-        import jax.numpy as jnp
-
-        mask = self._random_mask(seed, frac=0.55)
-        init = np.where(
-            mask, np.arange(mask.size, dtype=np.int32).reshape(mask.shape),
-            -1,
-        )
-        ref = np.asarray(grid_kernel._propagate_fixpoint(
-            jnp.asarray(init), periodic, 8, use_pallas=False
-        ))
-        lab = jnp.asarray(init)
-        n_b = mask.shape[0] // 4
-        chg = jnp.ones((n_b,), jnp.int32)
-        for _ in range(300):
-            act = chg | jnp.roll(chg, 1) | jnp.roll(chg, -1)
-            lab, chg = grid_kernel._pallas_sweep_round_skip(
-                lab, act, 4, periodic, interpret=True
-            )
-            if not bool(np.asarray(chg).any()):
-                break
-        np.testing.assert_array_equal(np.asarray(lab), ref)
-
-    def test_block_skip_wrap_reactivation(self):
-        """Activity that dies everywhere except one block must re-cross
-        the periodic x wrap: a single open straight channel along x with
-        the maximum label at one end. Blocks in the middle go quiet and
-        must be re-activated as the frontier passes through."""
-        import jax.numpy as jnp
-
-        gx = 32
-        mask = np.zeros((gx, 8, 8), bool)
-        mask[:, 2, 3] = True  # one percolating straight channel
-        init = np.where(
-            mask, np.arange(mask.size, dtype=np.int32).reshape(mask.shape),
-            -1,
-        )
-        ref = np.asarray(grid_kernel._propagate_fixpoint(
-            jnp.asarray(init), True, 8, use_pallas=False
-        ))
-        lab = jnp.asarray(init)
-        n_b = gx // 4
-        chg = jnp.ones((n_b,), jnp.int32)
-        for _ in range(300):
-            act = chg | jnp.roll(chg, 1) | jnp.roll(chg, -1)
-            lab, chg = grid_kernel._pallas_sweep_round_skip(
-                lab, act, 4, True, interpret=True
-            )
-            if not bool(np.asarray(chg).any()):
-                break
-        np.testing.assert_array_equal(np.asarray(lab), ref)
-        assert (np.asarray(lab)[mask] == np.asarray(lab)[mask].max()).all()
-
-
 class TestMultigridSeeding:
     """Coarse-to-fine seeded fixpoint (``_propagate_seeded``) is exact:
     the all-8-children-open coarsening only ever UNDER-seeds, so the
@@ -1367,10 +1177,8 @@ class TestZWindowedVoxelMasks:
     and layered (crystal-like) z distributions; capacity shortfalls
     must raise the missed flag, never silently under-block.
 
-    The path is DEFAULT-OFF in production (measured 11x slower than
-    the full-run sweep on v5e — XLA granularity, not correctness; see
-    xycol_plan's negative-result note). These tests keep it exact for
-    a future Pallas implementation."""
+    The path is not the production default (see the note in
+    xycol_plan). These tests keep it exact."""
 
     @pytest.mark.parametrize(
         "tric,layered", [(True, False), (False, True)]

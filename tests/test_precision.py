@@ -71,7 +71,6 @@ class TestTrajectoryScale:
         per_frame = jax.jit(lambda ps, cs: jax.lax.map(
             lambda args: pair_engine.frame_rdf_counts(
                 args[0], args[1], species_idx, 2.0, 3, 4, chunk=64,
-                method="scatter",
             ),
             (ps, cs),
         ))
@@ -86,7 +85,6 @@ class TestTrajectoryScale:
         total = np.asarray(pair_engine.trajectory_rdf_counts(
             jnp.asarray(batch.positions), jnp.asarray(batch.cell),
             jnp.asarray(species_idx), 2.0, 3, 4, chunk=64,
-            method="scatter",
         ))
         oracle = counts.sum(axis=0)
         assert oracle.max() > 2**24  # the regime plain f32 cannot hold
@@ -102,7 +100,6 @@ class TestTrajectoryScale:
         total = np.asarray(pair_engine.trajectory_rdf_counts(
             jnp.asarray(batch.positions), jnp.asarray(batch.cell),
             jnp.asarray(species_idx), 2.0, 3, 4, chunk=64,
-            method="scatter",
             frame_weights=jnp.asarray(volumes.astype(np.float32)),
         ))
         oracle = (volumes[:, None, None, None] * counts).sum(axis=0)
@@ -113,7 +110,7 @@ class TestTrajectoryScale:
         species_idx, counts = per_frame_f64
         fa = FusedAnalysis(
             {"Zn-N": 2.5, "C-N": 1.7}, dr=2.0, rmax=8.0, dtheta=5.0,
-            chunk=64, method="scatter", with_bad=True, with_msd=False,
+            chunk=64, with_bad=True, with_msd=False,
             max_neighbors=32,
         )
         out, meta = fa.run(batch, mesh=analysis_mesh(8, n_frames=N_FRAMES))

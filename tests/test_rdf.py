@@ -28,7 +28,7 @@ class TestPairEngine:
         )
         counts = np.asarray(pair_engine.frame_rdf_counts(
             positions, f.cell.astype(np.float32), species_idx,
-            0.3, 1, 13, chunk=256, method="scatter",
+            0.3, 1, 13, chunk=256,
         ))
         # bin of d=2.0 at dr=0.3 -> floor(2.0/0.3) = 6
         assert counts[0, 0, 6] == 64 * 6
@@ -45,12 +45,18 @@ class TestPairEngine:
         )
         args = (positions, f.cell.astype(np.float32), species_idx, 0.05, 2, 50)
         scatter = np.asarray(
-            pair_engine.frame_rdf_counts(*args, chunk=256, method="scatter")
+            pair_engine.frame_rdf_counts(*args, chunk=256)
         )
-        mxu = np.asarray(
-            pair_engine.frame_rdf_counts(*args, chunk=256, method="mxu")
-        )
-        assert np.array_equal(scatter, mxu)
+        # the one-hot histogram helper (the BAD kernel's) bins the same
+        # keys identically
+        import jax.numpy as jnp
+
+        keys = np.repeat(np.arange(scatter.size), scatter.ravel().astype(int))
+        onehot = np.asarray(pair_engine._onehot_histogram(
+            jnp.asarray(keys, jnp.int32), jnp.ones(len(keys), jnp.float32),
+            scatter.size,
+        )).reshape(scatter.shape)
+        assert np.array_equal(scatter, onehot)
         # Na-Cl first shell: 6 neighbors each, 32 Na atoms -> 192 ordered pairs
         b = int(2.0 / 0.05)
         assert scatter[0, 1, b - 1 : b + 2].sum() == 192
